@@ -18,14 +18,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache"))
-
 CACHE = os.path.join(REPO, ".bench_cache")
 VERSION = "v4-4mb-30x"
 GENOME_LEN = 4_000_000
 READ_LEN = 2000
 COVERAGE = 30
+N_NOISY = 256
 N_BENCH = int(os.environ.get("BENCH_READS", "256"))
 
 import numpy as np
@@ -72,7 +70,7 @@ def ensure_corpus():
                 r = ab.revcomp_str(r)
             f.write(f">c{i}\n{r}\n")
     with open(noisy, "w") as f:
-        for i, p in enumerate(rng.integers(0, GENOME_LEN - 1600, size=256)):
+        for i, p in enumerate(rng.integers(0, GENOME_LEN - 1600, size=N_NOISY)):
             f.write(f">r{i}\n{noisify(rng, genome[p : p + 1500], 0.08)}\n")
     with open(os.path.join(CACHE, "genome.txt"), "w") as f:
         f.write(genome)
@@ -108,6 +106,9 @@ def ensure_ref_index(corpus, stride):
 def main():
     import jax
 
+    from longreadselfcorrect_tpu.jaxcache import configure_compile_cache
+
+    configure_compile_cache()
     from longreadselfcorrect_tpu.core.batch_correct import BatchedSelfCorrector
     from longreadselfcorrect_tpu.core.correct import CorrectionParams, SelfCorrector
     from longreadselfcorrect_tpu.index import store

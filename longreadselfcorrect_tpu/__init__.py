@@ -1,4 +1,4 @@
-"""longreadselfcorrect_tpu — TPU-native long-read self-correction framework.
+"""longreadselfcorrect_tpu — JAX long-read self-correction framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ccuchengwei/LongReadSelfCorrect (StriDe fork): FM-index backward search as

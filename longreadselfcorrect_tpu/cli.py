@@ -107,6 +107,11 @@ def cmd_pbcorrect(args) -> int:
             cfg = walkmod.WalkConfig(G=g_, MAXLEN=ml, QMAX=qm, WSCAN=ws)
         _, dix = open_index(args.prefix)
         corrector = BatchedSelfCorrector(ix, dix, params, cfg=cfg)
+        import jax
+
+        dev0 = jax.local_devices()[0]
+        print(f"device engine on {dev0.platform} ({dev0.device_kind}), "
+              f"{len(jax.local_devices())} local device(s)", file=sys.stderr)
     else:
         corrector = SelfCorrector(ix, params)
     os.makedirs(args.output, exist_ok=True)
@@ -197,6 +202,18 @@ def cmd_pbcorrect(args) -> int:
                 dt = time.time() - t0
                 print(f"Processed {n} sequences in {dt:.1f}s ({n/dt:.1f} sequences/s)",
                       file=sys.stderr)
+
+    if use_device:
+        # one machine-readable line: wall time of the correction loop, the
+        # corrector's host-blocking phase split and its routing counters
+        import json
+
+        stats = {k: v for k, v in corrector.stats.items()
+                 if not isinstance(v, list)}
+        print("device stats: " + json.dumps({
+            "reads": n, "seconds": time.time() - t0,
+            "phase_times": corrector.phase_times, "counters": stats,
+        }), file=sys.stderr)
 
     if dist_mode:
         # KV counter reduction (doubles as the parts-written barrier: every
@@ -1110,7 +1127,8 @@ def main(argv=None) -> int:
                         " so it produces no output there or here")
     p.add_argument("-b", "--barcode", default=None)
     p.add_argument("--engine", choices=("host", "device"), default="host",
-                   help="host: single-thread numpy engine; device: batched TPU engine")
+                   help="host: single-thread numpy engine; device: batched "
+                        "JAX engine on the default accelerator")
     p.add_argument("--batch-reads", type=int, default=32)
     p.add_argument("--walk-config", default=None, dest="walk_config",
                    help="device-engine walk shape override "
@@ -1338,6 +1356,9 @@ def main(argv=None) -> int:
     p.set_defaults(func=cmd_kmercheck)
 
     args = parser.parse_args(argv)
+    from .jaxcache import configure_compile_cache
+
+    configure_compile_cache()
     return args.func(args)
 
 

@@ -32,7 +32,11 @@ def _lib():
         if not os.path.exists(p):
             src = p[:-3] + ".c"
             if os.path.exists(src):  # build on first use
-                os.system(f"cc -O2 -shared -fPIC -o {p} {src}")
+                # build aside, then rename: a concurrent loader never sees
+                # a half-written library
+                tmp = f"{p}.{os.getpid()}.tmp"
+                if os.system(f"cc -O2 -shared -fPIC -o {tmp} {src}") == 0:
+                    os.replace(tmp, p)
         if os.path.exists(p):
             _LIB = ctypes.CDLL(p)
             _LIB.aln_global_score.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 
 The branchy per-read control logic of the reference (seed scanning, beam
 bookkeeping, MSA decisions) runs on the host; only the batched hot kernels run
-on the TPU.  This module gives the host a vectorised-numpy view of the same
+on the device.  This module gives the host a vectorised-numpy view of the same
 BWT so scalar/branchy code never pays a device round trip.  It is also the
 golden model the device kernels are tested against.
 

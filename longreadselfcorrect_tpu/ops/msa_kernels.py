@@ -1,6 +1,6 @@
 """Device kernels for the MSA/DP fallback path.
 
-TPU equivalents of the two hot loops of the reference's MSA fallback
+Batched device equivalents of the two hot loops of the reference's MSA fallback
 (`correctByMSAlignment`):
 
 * ``lf_extract``  — batched LF-walk string extraction across SA rows,
@@ -16,8 +16,8 @@ TPU equivalents of the two hot loops of the reference's MSA fallback
 
 The column recurrence's "up-chain" (curr[k] = max(base[k], curr[k-1]+gap))
 is a running max of (base[k] - k*gap), computed with an associative scan —
-the classic prefix-combine trick that keeps the whole column step on the
-VPU instead of a sequential loop.
+the classic prefix-combine trick that keeps the whole column step
+data-parallel instead of a sequential loop.
 """
 from __future__ import annotations
 

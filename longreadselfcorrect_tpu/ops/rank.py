@@ -1,6 +1,6 @@
 """Batched rank / LF-mapping / backward-search primitives.
 
-These are the TPU equivalents of the reference's per-call scalar queries:
+Batched device equivalents of the reference's per-call scalar queries:
 
 * ``occ``          ~ RLBWT::getOcc           (SuffixTools/RLBWT.h:121)
 * ``occ_all``      ~ RLBWT::getFullOcc       (SuffixTools/RLBWT.h:143)

@@ -21,14 +21,40 @@ import os
 import numpy as np
 
 
+def local_gpu_count() -> int:
+    """GPUs this host exposes, counted without initialising a JAX backend
+    (``CUDA_VISIBLE_DEVICES`` when set, else ``nvidia-smi --list-gpus``);
+    0 when there are none or the driver tools are absent."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return len([d for d in vis.split(",") if d.strip()])
+    import subprocess
+
+    try:
+        out = subprocess.run(["nvidia-smi", "--list-gpus"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return 0
+    if out.returncode != 0:
+        return 0
+    return sum(1 for line in out.stdout.splitlines() if line.startswith("GPU "))
+
+
 def init(coordinator: str, num_processes: int, process_id: int) -> None:
-    """Initialize the jax.distributed runtime (no-op if already up)."""
+    """Initialize the jax.distributed runtime.
+
+    One process per card: on a GPU host each rank is pinned to local card
+    ``process_id % local_gpu_count()``, so ranks that share a host each
+    reserve the memory of their own card only (ranks are assumed to be
+    numbered host by host).  On a host without GPUs nothing is pinned."""
     import jax
 
+    n_gpu = local_gpu_count()
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=[process_id % n_gpu] if n_gpu else None,
     )
 
 
@@ -63,8 +89,8 @@ def kv_counter_sum(counters: np.ndarray, num_processes: int, process_id: int,
     collectives).
 
     The CLI uses this instead of a mesh psum because ranks finish their
-    shards minutes apart when compile caches are cold, and Gloo/ICI
-    collective setup has a short peer timeout; metrics reduction is not a
+    shards minutes apart when compile caches are cold, and a device
+    collective's peer setup has a short timeout; metrics reduction is not a
     hot path, so the KV exchange (which also acts as the completion
     barrier for the ordered merge) is the robust choice."""
     from jax._src import distributed as _dist

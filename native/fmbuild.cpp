@@ -1,6 +1,6 @@
 // fmbuild — native multi-string BWT builder (SA-IS).
 //
-// TPU-native replacement for the reference's index construction path
+// Native replacement for the reference's index construction path
 // (SuffixTools/BWTCARopebwt.cpp + Thirdparty/ropebwt2): builds the BWT of a
 // read collection under the SGA sentinel convention (each read terminated by
 // its own '$', sentinels ordered by read index, '$' < A < C < G < T) using

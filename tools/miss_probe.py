@@ -10,7 +10,6 @@ from collections import Counter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache"))
 
 import numpy as np
 
@@ -79,6 +78,9 @@ class Probe(BatchedSelfCorrector):
 
 
 def main():
+    from longreadselfcorrect_tpu.jaxcache import configure_compile_cache
+
+    configure_compile_cache()
     import jax
     print("devices:", jax.devices(), file=sys.stderr)
     noisy = os.path.join(CACHE, "noisy.fa")
